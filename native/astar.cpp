@@ -1,4 +1,4 @@
-// Weighted grid A* — native planner core for ros2_mpc_tpu.
+// Weighted grid A* — native planner core for ros2_mpc_jax.
 //
 // The reference delegates its live global planning to the pyastar2d C++
 // extension (ros2_mpc/planner/global_planner.py:91-93): a weighted-grid A*

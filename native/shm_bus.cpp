@@ -4,7 +4,7 @@
 // The reference runs its nine nodes as separate OS processes exchanging
 // last-writer-wins topic messages over ROS 2 DDS (ros2_mpc/core/ros_topics.py,
 // launch/launch_all.launch.py:56-64).  The in-process MessageBus
-// (ros2_mpc_tpu/nodes/bus.py) reproduces those semantics for one process;
+// (ros2_mpc_jax/nodes/bus.py) reproduces those semantics for one process;
 // this file provides the multi-process equivalent: one mmap'd file holds a
 // fixed table of topics, each a single-slot seqlock buffer caching the latest
 // message.  That is exactly the reference's pull idiom — subscribers only
@@ -20,7 +20,7 @@
 //     progress; re-read on mismatch.  Torn reads are impossible to observe.
 //   * topic creation is a CAS-claimed slot scan, safe across processes.
 //
-// The Python binding lives in ros2_mpc_tpu/nodes/shm_bus.py (ctypes), built
+// The Python binding lives in ros2_mpc_jax/nodes/shm_bus.py (ctypes), built
 // on demand like native/astar.cpp.
 
 #include <atomic>

@@ -12,15 +12,15 @@ setuptools merges both sources.
 
 from setuptools import setup
 
-package_name = "ros2_mpc_tpu"
+package_name = "ros2_mpc_jax"
 
 setup(
     data_files=[
         ("share/ament_index/resource_index/packages", ["resource/" + package_name]),
         ("share/" + package_name, ["package.xml"]),
         ("share/" + package_name + "/config", [
-            "ros2_mpc_tpu/assets/params.yaml",
-            "config/rviz_tpu_mpc.rviz",
+            "ros2_mpc_jax/assets/params.yaml",
+            "config/rviz_jax_mpc.rviz",
         ]),
         ("share/" + package_name + "/maps", [
             "maps/map_synthetic.pgm",

@@ -1,6 +1,6 @@
-"""Worker for the multi-process (DCN-analogue) scaling measurement.
+"""Worker for the multi-process (multi-host analogue) scaling measurement.
 
-Launched (never imported) by ros2_mpc_tpu.parallel.scaling_bench's
+Launched (never imported) by ros2_mpc_jax.parallel.scaling_bench's
 distributed mode and by tests/test_scaling_distributed.py: 2 OS processes x
 4 virtual CPU devices form one 8-device global mesh over local TCP. Each
 engine is timed twice:
@@ -10,7 +10,7 @@ engine is timed twice:
   other process parks in a coordination barrier;
 * **8-dev global**: the sharded bank step over the full global mesh — the
   telemetry all-reduces cross the process (TCP) boundary every step, which
-  is exactly the DCN path a real pod pays.
+  is exactly the cross-host path a real cluster pays.
 
 Process 0 prints one ``DIST_SCALING_OK {json}`` line with per-engine
 throughput and efficiency. The same contention caveat as the virtual-mesh
@@ -31,17 +31,17 @@ def main():
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from ros2_mpc_tpu.config import Params
-    from ros2_mpc_tpu.parallel.distributed import initialize
-    from ros2_mpc_tpu.parallel.mesh import make_bank_solver, make_mesh
-    from ros2_mpc_tpu.solver import make_point_stabilization
-    from ros2_mpc_tpu.solver.mppi import MppiSettings
+    from ros2_mpc_jax.config import Params
+    from ros2_mpc_jax.parallel.distributed import initialize
+    from ros2_mpc_jax.parallel.mesh import make_bank_solver, make_mesh
+    from ros2_mpc_jax.solver import make_point_stabilization
+    from ros2_mpc_jax.solver.mppi import MppiSettings
 
     info = initialize()
     assert info["initialized"] and info["process_count"] == 2, info
     from jax.experimental import multihost_utils
 
-    from ros2_mpc_tpu.solver import SolverSettings
+    from ros2_mpc_jax.solver import SolverSettings
 
     N = 10
     per_dev = 64
@@ -74,7 +74,6 @@ def main():
                 "capacity": per_dev // 2,
                 "tile_s": 1,
                 "tile_l": per_dev,
-                "rescue_tile_s": 1,
                 "rescue_settings": short,
                 "interpret": True,
             },
@@ -153,8 +152,8 @@ def main():
     # --- Per-tick all_gather swarm across the process boundary: the one
     # workload whose collectives are IN the control loop (positions +
     # velocities gathered every tick), so the TCP path is paid n_ticks times
-    # per dispatch — the honest DCN-analogue for the coupled fleet.
-    from ros2_mpc_tpu.parallel.fleet import (
+    # per dispatch — the honest multi-host analogue for the coupled fleet.
+    from ros2_mpc_jax.parallel.fleet import (
         circle_swarm,
         make_sharded_swarm_rollout,
         make_swarm_rollout,
@@ -218,7 +217,7 @@ def main():
         for r in results:
             r["efficiency_vs_ceiling"] = min(1.0, r["scaling_efficiency"] / ceiling)
         out = {
-            "mode": "2-process jax.distributed over TCP (DCN analogue)",
+            "mode": "2-process jax.distributed over TCP (multi-host analogue)",
             "processes": info["process_count"],
             "global_devices": n_global,
             "per_device_batch": per_dev,

@@ -21,10 +21,10 @@ def main():
     import numpy as np
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from ros2_mpc_tpu.config import Params
-    from ros2_mpc_tpu.parallel.distributed import initialize
-    from ros2_mpc_tpu.parallel.mesh import make_bank_solver, make_mesh
-    from ros2_mpc_tpu.solver import make_point_stabilization
+    from ros2_mpc_jax.config import Params
+    from ros2_mpc_jax.parallel.distributed import initialize
+    from ros2_mpc_jax.parallel.mesh import make_bank_solver, make_mesh
+    from ros2_mpc_jax.solver import make_point_stabilization
 
     info = initialize()
     assert info["initialized"], info
@@ -68,10 +68,10 @@ def main():
 
     # Coupled-fleet path: the sharded swarm all_gathers fleet positions and
     # velocities over the global mesh EVERY control tick, so the collective
-    # crosses the process (DCN-analogue TCP) boundary. Cross-check against a
+    # crosses the process (multi-host-analogue TCP) boundary. Cross-check against a
     # process-local unsharded swarm.
-    from ros2_mpc_tpu.parallel.fleet import make_swarm_rollout, make_sharded_swarm_rollout
-    from ros2_mpc_tpu.solver import SolverSettings
+    from ros2_mpc_jax.parallel.fleet import make_swarm_rollout, make_sharded_swarm_rollout
+    from ros2_mpc_jax.solver import SolverSettings
 
     tiny = SolverSettings(barrier_stages=2, iters_per_stage=2, n_alphas=4)
     prob_c = make_point_stabilization(

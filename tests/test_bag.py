@@ -4,11 +4,11 @@ sensor-only replay must drive a live node to bit-identical outputs."""
 
 import numpy as np
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.nodes.bag import BagRecorder, load_bag, replay, save_bag
-from ros2_mpc_tpu.nodes.bus import MessageBus
-from ros2_mpc_tpu.nodes.costmap_nodes import LocalCostmapNode
-from ros2_mpc_tpu.nodes.launch import build_sim_stack
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.nodes.bag import BagRecorder, load_bag, replay, save_bag
+from ros2_mpc_jax.nodes.bus import MessageBus
+from ros2_mpc_jax.nodes.costmap_nodes import LocalCostmapNode
+from ros2_mpc_jax.nodes.launch import build_sim_stack
 
 
 def _record_run(n_ticks=30):
@@ -93,7 +93,7 @@ def test_replay_filters_topics():
 def test_bag_cli_info_and_offline_viz(tmp_path, capsys):
     import os
 
-    from ros2_mpc_tpu.nodes import bag as bagmod
+    from ros2_mpc_jax.nodes import bag as bagmod
 
     _, records = _record_run(n_ticks=10)
     p = tmp_path / "run.bag"

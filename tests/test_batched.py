@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.solver import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.solver import (
     SolverSettings,
     make_legacy_point_stabilization,
     make_point_stabilization,
     make_tracking,
 )
-from ros2_mpc_tpu.solver.batched import make_bank_solver_fast
+from ros2_mpc_jax.solver.batched import make_bank_solver_fast
 
 PARAMS = Params()
 N = 10

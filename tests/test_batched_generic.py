@@ -19,14 +19,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.solver import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.solver import (
     make_bicycle_point_stabilization,
     make_quadrotor_hover,
     make_smooth_point_stabilization,
 )
-from ros2_mpc_tpu.solver.batched import _chol_solve, make_bank_solver_fast
-from ros2_mpc_tpu.solver.ilqr import OCP, SolverSettings
+from ros2_mpc_jax.solver.batched import _chol_solve, make_bank_solver_fast
+from ros2_mpc_jax.solver.ilqr import OCP, SolverSettings
 
 PARAMS = Params()
 
@@ -125,9 +125,9 @@ def test_smooth_bank_parity_fast_vs_vmap():
 def test_fast_polish_composite_generic():
     """The model-generic bank composite (make_fast_polish_solver): fast
     first pass + box-DDP KKT polish on the quadrotor bank must never worsen
-    a row and must lift the converged fraction (the measured TPU config:
-    9.2k/s @ 72.6% plain -> 14.9k/s @ 97.8% composite)."""
-    from ros2_mpc_tpu.solver import make_fast_polish_solver
+    a row and must lift the converged fraction (bench.py's quadrotor_*
+    cells measure the production configuration)."""
+    from ros2_mpc_jax.solver import make_fast_polish_solver
 
     prob = make_quadrotor_hover(horizon=10, settings=SolverSettings.fast())
     B = 32
@@ -194,7 +194,7 @@ def test_generic_fleet_quadrotor_reaches_hover():
     make_generic_fleet_rollout): a 12-state quadrotor fleet flies
     solve-actuate-shift to per-robot goal poses through the generic bank
     engine — the fleet-scale capability for every model family."""
-    from ros2_mpc_tpu.parallel import make_generic_fleet_rollout
+    from ros2_mpc_jax.parallel import make_generic_fleet_rollout
 
     dt = 0.05
     prob = make_quadrotor_hover(
@@ -221,8 +221,8 @@ def test_generic_fleet_quadrotor_reaches_hover():
 
 
 def test_generic_fleet_rejects_tracking():
-    from ros2_mpc_tpu.parallel import make_generic_fleet_rollout
-    from ros2_mpc_tpu.solver import make_tracking
+    from ros2_mpc_jax.parallel import make_generic_fleet_rollout
+    from ros2_mpc_jax.solver import make_tracking
 
     prob = make_tracking(PARAMS, horizon=8)
     with pytest.raises(ValueError, match="tracking"):

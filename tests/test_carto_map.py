@@ -21,8 +21,8 @@ import os
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.nodes.launch import build_sim_stack
-from ros2_mpc_tpu.utils import pgm
+from ros2_mpc_jax.nodes.launch import build_sim_stack
+from ros2_mpc_jax.utils import pgm
 
 CARTO_PGM = "/root/reference/maps/map_carto.pgm"
 CARTO_YAML = "/root/reference/maps/map_carto.yaml"
@@ -119,7 +119,7 @@ def test_live_graph_navigates_carto_map(carto):
     """The wall-clock deployment graph (real 20/10/5/1 Hz rates) on the real
     cartographer floor plan: goal latched within the time budget, control
     deadlines essentially clean."""
-    from ros2_mpc_tpu.nodes.live import build_live_stack
+    from ros2_mpc_jax.nodes.live import build_live_stack
 
     img, info = carto
     stack = build_live_stack(
@@ -142,7 +142,7 @@ def test_autonomous_exploration_of_carto_map(carto):
     real cartographer building — crossing at least one doorway — without a
     single collision, and terminates itself. The reference needs this very
     map pre-built just to take its first goal."""
-    from ros2_mpc_tpu.nodes.explorer import ExplorerNode
+    from ros2_mpc_jax.nodes.explorer import ExplorerNode
 
     img, info = carto
     stack = build_sim_stack(

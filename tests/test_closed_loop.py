@@ -6,9 +6,9 @@ physical robot or an external Gazebo install (SURVEY.md §4)."""
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.nodes.launch import build_sim_stack
-from ros2_mpc_tpu.utils import pgm
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.nodes.launch import build_sim_stack
+from ros2_mpc_jax.utils import pgm
 
 HORIZON = 12
 
@@ -156,7 +156,7 @@ def test_global_costmap_file_reload_variant():
     (core/global_costmap_publisher_nav.py:23-33)."""
     import os
 
-    from ros2_mpc_tpu.nodes.costmap_nodes import GlobalCostmapNode
+    from ros2_mpc_jax.nodes.costmap_nodes import GlobalCostmapNode
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     stack = build_sim_stack(follower="tracking", start_pose=(-1.0, -1.0, 0.0), horizon=HORIZON)

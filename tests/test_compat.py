@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.compat import (
+from ros2_mpc_jax.compat import (
     LegacyPointStabilizationMpc,
     PointStabilizationMpc,
     SolveError,
     TrackingMpc,
 )
-from ros2_mpc_tpu.config import Params
+from ros2_mpc_jax.config import Params
 
 N = 10
 

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.ops import costmap
+from ros2_mpc_jax.ops import costmap
 
 
 def ref_inflation_matrix(c, factor=1.3):

@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ros2_mpc_tpu.ops import costs
+from ros2_mpc_jax.ops import costs
 
 
 def test_quadratic_error():

@@ -10,7 +10,7 @@ code and its planner never sees the scan — SURVEY.md quirk #1)."""
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.nodes.launch import build_sim_stack
+from ros2_mpc_jax.nodes.launch import build_sim_stack
 
 
 @pytest.mark.slow

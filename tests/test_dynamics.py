@@ -8,8 +8,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ros2_mpc_tpu.models import unicycle
-from ros2_mpc_tpu.ops import integrators
+from ros2_mpc_jax.models import unicycle
+from ros2_mpc_jax.ops import integrators
 
 
 def analytic_arc(x0, v, w, t):

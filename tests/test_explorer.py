@@ -7,9 +7,9 @@ map to move at all."""
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.nodes.explorer import ExplorerNode
-from ros2_mpc_tpu.nodes.launch import build_sim_stack
-from ros2_mpc_tpu.planner.frontier import (
+from ros2_mpc_jax.nodes.explorer import ExplorerNode
+from ros2_mpc_jax.nodes.launch import build_sim_stack
+from ros2_mpc_jax.planner.frontier import (
     cluster_frontiers,
     frontier_cells,
     pick_frontier_goal,

@@ -4,7 +4,7 @@ of the reference loops (ros2_mpc/utils/utils.py)."""
 import jax.numpy as jnp
 import numpy as np
 
-from ros2_mpc_tpu.ops import grid
+from ros2_mpc_jax.ops import grid
 
 
 def ref_scan_to_occ(ranges, angles, res, size, rotation=0.0):

@@ -7,8 +7,8 @@ import time
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.nodes.live import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.nodes.live import (
     RateScheduler,
     SimLocalization,
     Task,
@@ -64,8 +64,8 @@ def test_run_single_node_costmap_publishes():
     """The standalone per-node process model (reference setup.py:28-40): a
     lone costmap node against the simulator source must publish real
     costmaps at ~10 Hz."""
-    from ros2_mpc_tpu.nodes.costmap_nodes import LocalCostmapNode
-    from ros2_mpc_tpu.nodes.live import run_single_node
+    from ros2_mpc_jax.nodes.costmap_nodes import LocalCostmapNode
+    from ros2_mpc_jax.nodes.live import run_single_node
 
     stats = run_single_node(
         LocalCostmapNode, "local_costmap", lambda p: p.local_costmap_period,
@@ -107,7 +107,7 @@ def test_live_graph_paced_soak():
 def test_live_viz_renders_frames(tmp_path):
     """The RViz-surrogate viz node renders valid PNG frames from live topics
     (config/rviz_config.rviz capability; VERDICT round-1 missing #4)."""
-    from ros2_mpc_tpu.nodes.live import build_live_stack
+    from ros2_mpc_jax.nodes.live import build_live_stack
 
     stack = build_live_stack(follower="point", viz_dir=str(tmp_path), viz_period=0.2)
     stack.publish_goal(1.0, -1.0)

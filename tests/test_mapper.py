@@ -7,9 +7,9 @@ carved along the route, and revisable evidence (clamped log-odds)."""
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.nodes.launch import build_sim_stack
-from ros2_mpc_tpu.nodes.mapper import MapperNode
-from ros2_mpc_tpu.ops.costmap import dilate
+from ros2_mpc_jax.nodes.launch import build_sim_stack
+from ros2_mpc_jax.nodes.mapper import MapperNode
+from ros2_mpc_jax.ops.costmap import dilate
 
 
 def _drive_and_map(goals, max_ticks=250):
@@ -68,7 +68,7 @@ def test_logodds_clamp_keeps_map_revisable():
     re-learnable: the clamp bounds accumulated evidence."""
     import jax.numpy as jnp
 
-    from ros2_mpc_tpu.ops.mapping import logodds_update, occupancy_probability
+    from ros2_mpc_jax.ops.mapping import logodds_update, occupancy_probability
 
     L = jnp.zeros((80, 80), jnp.float32)
     pose = jnp.asarray([0.0, 0.0, 0.0], jnp.float32)

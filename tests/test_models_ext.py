@@ -12,10 +12,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.models import bicycle, unicycle_dyn
-from ros2_mpc_tpu.ops.integrators import make_step, rollout
-from ros2_mpc_tpu.solver import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.models import bicycle, unicycle_dyn
+from ros2_mpc_jax.ops.integrators import make_step, rollout
+from ros2_mpc_jax.solver import (
     make_bicycle_point_stabilization,
     make_smooth_point_stabilization,
 )
@@ -93,7 +93,7 @@ def test_smooth_point_stab_parks_with_bounded_accel():
 
 def test_smooth_model_composes_with_mppi_and_hybrid():
     """The second solver family is model-generic too."""
-    from ros2_mpc_tpu.solver import MppiSettings, make_hybrid_solver
+    from ros2_mpc_jax.solver import MppiSettings, make_hybrid_solver
 
     prob = make_smooth_point_stabilization(PARAMS, horizon=16)
     theta = prob.make_theta(jnp.zeros(5), jnp.array([0.4, -0.2, 0.0]))
@@ -105,7 +105,7 @@ def test_smooth_model_composes_with_mppi_and_hybrid():
 
 
 def test_new_kinds_shard_with_vmap_engine_and_reject_specialized():
-    from ros2_mpc_tpu.parallel import make_bank_solver, make_mesh, shard_bank
+    from ros2_mpc_jax.parallel import make_bank_solver, make_mesh, shard_bank
 
     prob = make_bicycle_point_stabilization(PARAMS, horizon=8)
     rng = np.random.default_rng(0)
@@ -129,7 +129,7 @@ def test_new_kinds_shard_with_vmap_engine_and_reject_specialized():
     with pytest.raises(ValueError, match="unicycle structure"):
         make_bank_solver(prob, mesh, engine="pallas")
 
-    from ros2_mpc_tpu.parallel.fleet import make_fleet_rollout
+    from ros2_mpc_jax.parallel.fleet import make_fleet_rollout
 
     with pytest.raises(ValueError, match="point_stabilization"):
         make_fleet_rollout(prob, n_ticks=2, dt=PARAMS.dt)
@@ -139,8 +139,8 @@ def test_sweep_runs_on_new_model_families():
     """Monte-Carlo tuning sweeps are model-generic through the vmap engine:
     the same SweepSpec grid runs on the bicycle and the smooth-actuation
     unicycle (extra velocity states start at zero)."""
-    from ros2_mpc_tpu.parallel import SweepSpec, make_mesh, run_sweep
-    from ros2_mpc_tpu.solver.ilqr import SolverSettings
+    from ros2_mpc_jax.parallel import SweepSpec, make_mesh, run_sweep
+    from ros2_mpc_jax.solver.ilqr import SolverSettings
 
     spec = SweepSpec(q_scales=(0.5, 2.0), r_scales=(1.0,), scenarios_per_config=4)
     fast = SolverSettings(barrier_stages=3, iters_per_stage=3, n_alphas=6)
@@ -155,8 +155,8 @@ def test_sweep_runs_on_new_model_families():
 def test_quadrotor_hover_is_dynamics_fixed_point():
     """The analytic hover input (m g, 0, 0, 0) holds any level zero-rate
     pose exactly (models/quadrotor.py contract)."""
-    from ros2_mpc_tpu.models import quadrotor
-    from ros2_mpc_tpu.ops.integrators import make_step
+    from ros2_mpc_jax.models import quadrotor
+    from ros2_mpc_jax.ops.integrators import make_step
 
     F = make_step(quadrotor.make_f(), "rk4", 0.05)
     x = jnp.array([1.0, -2.0, 3.0, 0, 0, 0, 0, 0, 0.7, 0, 0, 0])
@@ -171,7 +171,7 @@ def test_quadrotor_hover_solver_flies_to_pose():
     """The generic iLQR stabilizes the 12-state platform from a perturbed
     start (offset + tilt + rate): 16x16 stage quadratization, asymmetric
     4-dim control box, hover warm start."""
-    from ros2_mpc_tpu.solver import make_quadrotor_hover
+    from ros2_mpc_jax.solver import make_quadrotor_hover
 
     prob = make_quadrotor_hover(horizon=30)
     x0 = jnp.array([0.4, -0.3, -0.2, 0, 0, 0, 0.15, -0.1, 0.3, 0, 0, 0])
@@ -195,8 +195,8 @@ def test_quadrotor_hover_solver_flies_to_pose():
 def test_quadrotor_bank_and_mesh_vmap_engine():
     """Scenario banks + mesh sharding compose unchanged for the 12-state
     family; the Pallas kernels reject it loudly."""
-    from ros2_mpc_tpu.parallel import make_bank_solver, make_mesh, shard_bank
-    from ros2_mpc_tpu.solver import make_quadrotor_hover
+    from ros2_mpc_jax.parallel import make_bank_solver, make_mesh, shard_bank
+    from ros2_mpc_jax.solver import make_quadrotor_hover
 
     prob = make_quadrotor_hover(horizon=12)
     B = 16
@@ -224,9 +224,9 @@ def test_quadrotor_receding_horizon_closed_loop():
     control on an RK4 plant, shift-warm-start, repeat — reaches and holds
     the goal pose (the pattern every follower node runs, on a platform the
     reference cannot express)."""
-    from ros2_mpc_tpu.models import quadrotor
-    from ros2_mpc_tpu.ops.integrators import make_step
-    from ros2_mpc_tpu.solver import SolverSettings, make_quadrotor_hover, shift_controls
+    from ros2_mpc_jax.models import quadrotor
+    from ros2_mpc_jax.ops.integrators import make_step
+    from ros2_mpc_jax.solver import SolverSettings, make_quadrotor_hover, shift_controls
 
     dt = 0.05
     prob = make_quadrotor_hover(

@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.solver import make_point_stabilization, make_tracking
-from ros2_mpc_tpu.solver.mppi import MppiSettings, make_hybrid_solver, make_mppi_solver
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.solver import make_point_stabilization, make_tracking
+from ros2_mpc_jax.solver.mppi import MppiSettings, make_hybrid_solver, make_mppi_solver
 
 PARAMS = Params()
 
@@ -114,7 +114,7 @@ def test_hybrid_never_worse_and_lifts_convergence():
 def test_packed_hybrid_matches_direct():
     """The packed-theta wrapper forwards the PRNG key and reproduces the
     direct hybrid solve exactly (same theta, same key)."""
-    from ros2_mpc_tpu.solver.packed import make_packed_point_stab
+    from ros2_mpc_jax.solver.packed import make_packed_point_stab
 
     prob = _point_stab(horizon=10)
     hybrid = make_hybrid_solver(prob.ocp, prob.settings, MppiSettings(n_samples=32, n_iters=4))
@@ -138,7 +138,7 @@ def test_point_follower_escape_recovery():
     """escape_after wiring: a (forced) stall triggers exactly one hybrid
     escape tick, the command stays finite, and the robot still reaches the
     goal afterwards."""
-    from ros2_mpc_tpu.nodes.launch import build_sim_stack
+    from ros2_mpc_jax.nodes.launch import build_sim_stack
 
     stack = build_sim_stack(
         follower="point", start_pose=(-1.0, -1.0, 0.0), horizon=12,
@@ -169,7 +169,7 @@ def test_multistart_breaks_symmetric_saddle():
     break the y-symmetry, so the plain iLQR hovers; sampling alone cannot
     bridge the distance either. The multi-start engine's arc seeds must
     find the detour basin and beat the plain solve decisively."""
-    from ros2_mpc_tpu.solver import make_multistart_solver
+    from ros2_mpc_jax.solver import make_multistart_solver
 
     prob = _point_stab(horizon=40)
     n = PARAMS.n_obstacle_points
@@ -204,7 +204,7 @@ def test_multistart_never_worse_on_open_floor():
     """No obstacle, convex-ish landscape: multistart must simply reproduce
     (or marginally beat) the plain solve — the warm start is one of its
     polished candidates."""
-    from ros2_mpc_tpu.solver import make_multistart_solver
+    from ros2_mpc_jax.solver import make_multistart_solver
 
     prob = _point_stab()
     theta = prob.make_theta(jnp.zeros(3), jnp.array([0.4, 0.25, 0.5]))
@@ -220,7 +220,7 @@ def test_multistart_never_worse_on_open_floor():
 def test_multistart_generalizes_to_bicycle():
     """Arc seeds are built from the control box alone, so the engine works
     on any 2-control platform (here: Ackermann steering)."""
-    from ros2_mpc_tpu.solver import make_bicycle_point_stabilization, make_multistart_solver
+    from ros2_mpc_jax.solver import make_bicycle_point_stabilization, make_multistart_solver
 
     prob = make_bicycle_point_stabilization(PARAMS, horizon=24)
     theta = prob.make_theta(jnp.zeros(3), jnp.array([0.7, 0.2, 0.0]))
@@ -239,8 +239,8 @@ def test_selection_semantics_nan_and_nonconverged():
     candidates the LOWEST COST must win (a 1e30 penalty swamps the f32 cost
     tiebreak and degenerates argmin to index 0), and a NaN cost must never
     win over a finite one."""
-    from ros2_mpc_tpu.solver.ilqr import Solution
-    from ros2_mpc_tpu.solver.mppi import _prefer_first, _select_best
+    from ros2_mpc_jax.solver.ilqr import Solution
+    from ros2_mpc_jax.solver.mppi import _prefer_first, _select_best
 
     def bank(cost, conv):
         k = len(cost)
@@ -269,7 +269,7 @@ def test_selection_semantics_nan_and_nonconverged():
 def test_tracking_follower_escape_recovery():
     """escape_after on the tracking follower: a (forced) stall triggers one
     multi-start escape on the tracking OCP; the run still reaches the goal."""
-    from ros2_mpc_tpu.nodes.launch import build_sim_stack
+    from ros2_mpc_jax.nodes.launch import build_sim_stack
 
     stack = build_sim_stack(
         follower="tracking", start_pose=(-1.0, -1.0, 0.0), horizon=12,

@@ -6,7 +6,7 @@ MultiRobotSim is the honest analogue of K domains sharing one world."""
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.nodes.multi_robot import MultiRobotSim
+from ros2_mpc_jax.nodes.multi_robot import MultiRobotSim
 
 
 @pytest.mark.slow

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.solver import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.solver import (
     SolverSettings,
     adversarial_saddle_bank,
     make_bank_multistart_solver,
@@ -23,7 +23,7 @@ def test_bank_multistart_matches_per_scenario_multistart():
     """The bank-reshaped polish must reproduce the per-scenario multistart
     engine (make_multistart_solver without MPPI) scenario for scenario —
     same seeds, same (converged, cost) selection."""
-    from ros2_mpc_tpu.solver import make_multistart_solver
+    from ros2_mpc_jax.solver import make_multistart_solver
 
     prob = make_point_stabilization(PARAMS, horizon=12, settings=FAST, reference_parity=False)
     B = 16
@@ -46,8 +46,8 @@ def test_bank_multistart_matches_per_scenario_multistart():
 def test_bank_multistart_uplift_on_saddle_bank():
     """On the adversarial saddle bank the multistart must converge
     scenarios the single-start engine fails — the fleet-scale escape gate.
-    (N=40 so the ~1 m goal is reachable and the saddle binds; the TPU bench
-    measures +12 pt at B=4096, this CPU test pins the effect at B=32.)"""
+    (N=40 so the ~1 m goal is reachable and the saddle binds; bench.py
+    measures the effect at B=4096, this CPU test pins it at B=32.)"""
     # full default schedule: the obstacle cliffs need the whole barrier
     # continuation (the short FAST schedule fails both engines equally)
     prob = make_point_stabilization(PARAMS, horizon=40, reference_parity=False)
@@ -85,7 +85,7 @@ def test_multistart_rescue_composite_never_worse_and_rescues():
     long-schedule multistart rescue, solver/rescue.py): row-wise KKT
     residuals never regress vs plain multistart, and the converged
     fraction moves toward 1 on the saddle bank (round-4 verdict item 2)."""
-    from ros2_mpc_tpu.solver import make_multistart_two_pass_solver
+    from ros2_mpc_jax.solver import make_multistart_two_pass_solver
 
     prob = make_point_stabilization(PARAMS, horizon=40, reference_parity=False)
     B = 32
@@ -115,7 +115,7 @@ def test_multistart_rescue_unfused_matches_fused():
     """fuse=False runs the same three stages as separately jitted programs
     (the fallback for compile environments that cannot hold the fused
     module); numerics must be identical."""
-    from ros2_mpc_tpu.solver import make_multistart_two_pass_solver
+    from ros2_mpc_jax.solver import make_multistart_two_pass_solver
 
     prob = make_point_stabilization(PARAMS, horizon=12, settings=FAST, reference_parity=False)
     B = 32

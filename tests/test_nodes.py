@@ -3,23 +3,23 @@ generation helpers, obstacle extraction, slew limiter."""
 
 import numpy as np
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.nodes import MessageBus
-from ros2_mpc_tpu.nodes.bus import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.nodes import MessageBus
+from ros2_mpc_jax.nodes.bus import (
     Odometry,
     Pose,
     PoseStamped,
     Quaternion,
 )
-from ros2_mpc_tpu.nodes.reference_gen import (
+from ros2_mpc_jax.nodes.reference_gen import (
     get_goal_for_mpc,
     get_headings,
     get_obstacles,
     get_reference_trajectory,
     slew_limited_command,
 )
-from ros2_mpc_tpu.nodes.state_publishers import TransformPublisherNode
-from ros2_mpc_tpu.nodes.topics import GoalSubscriber, OdomSubscriber
+from ros2_mpc_jax.nodes.state_publishers import TransformPublisherNode
+from ros2_mpc_jax.nodes.topics import GoalSubscriber, OdomSubscriber
 
 PARAMS = Params()
 
@@ -159,7 +159,7 @@ def test_mapped_structure_mask_and_scan_filter():
     (reference_gen.mapped_structure_mask / scan_to_world_obstacles):
     dilation matches a naive loop; wall returns are dropped while unmapped
     returns survive; off-map returns don't alias into border cells."""
-    from ros2_mpc_tpu.nodes.reference_gen import (
+    from ros2_mpc_jax.nodes.reference_gen import (
         mapped_structure_mask,
         scan_to_world_obstacles,
     )

@@ -21,8 +21,8 @@ import numpy as np
 import pytest
 
 import oracle
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.solver import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.solver import (
     SolverSettings,
     make_legacy_point_stabilization,
     make_point_stabilization,
@@ -222,7 +222,7 @@ SWEEP_EXT = 16
 
 def test_bicycle_oracle_sweep():
     """Obstacle-active bicycle drive-to-pose vs the f64 oracle."""
-    from ros2_mpc_tpu.solver import make_bicycle_point_stabilization
+    from ros2_mpc_jax.solver import make_bicycle_point_stabilization
 
     prob = make_bicycle_point_stabilization(PARAMS, horizon=N)
     rng = np.random.default_rng(7)
@@ -257,7 +257,7 @@ def test_quadrotor_oracle_sweep():
     relative to the control box width (thrust spans 9.81 N, torques 0.04 N m
     — one absolute tolerance would be meaningless across 250x scales);
     5e-3 of width is the documented bound for the 12-state family."""
-    from ros2_mpc_tpu.solver import make_quadrotor_hover
+    from ros2_mpc_jax.solver import make_quadrotor_hover
 
     dt, N_q = 0.05, 20
     prob = make_quadrotor_hover(horizon=N_q, dt=dt)

@@ -1,12 +1,14 @@
-"""Whole-solver Pallas kernel vs the XLA engines (interpret mode on CPU)."""
+"""Whole-solver Pallas kernels vs the XLA engines (interpret mode on CPU), and
+their compiled route: cross-lowered for CUDA through Triton at bench shapes."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.solver import SolverSettings, make_point_stabilization
-from ros2_mpc_tpu.solver.pallas_kernel import make_pallas_point_stab_solver
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.solver import SolverSettings, make_point_stabilization
+from ros2_mpc_jax.solver.pallas_kernel import make_pallas_point_stab_solver
 
 PARAMS = Params()
 N = 10
@@ -62,8 +64,8 @@ def test_pallas_kernel_with_active_obstacles():
 
 
 def test_pallas_tracking_kernel_matches_reference():
-    from ros2_mpc_tpu.solver import make_tracking
-    from ros2_mpc_tpu.solver.pallas_kernel import make_pallas_tracking_solver
+    from ros2_mpc_jax.solver import make_tracking
+    from ros2_mpc_jax.solver.pallas_kernel import make_pallas_tracking_solver
 
     prob = make_tracking(PARAMS, horizon=N, settings=FAST, reference_parity=False)
     B = 16
@@ -97,8 +99,8 @@ def test_pallas_tracking_kernel_terminal_weight():
     solver/problems.py::make_tracking terminal_weight) must run on the
     Pallas tracking kernel and match the vmap engine — and the weight must
     actually bend the solution (vs the parity zero-weight solve)."""
-    from ros2_mpc_tpu.solver import make_tracking
-    from ros2_mpc_tpu.solver.pallas_kernel import make_pallas_tracking_solver
+    from ros2_mpc_jax.solver import make_tracking
+    from ros2_mpc_jax.solver.pallas_kernel import make_pallas_tracking_solver
 
     B = 16
     rng = np.random.default_rng(7)
@@ -141,12 +143,12 @@ def test_pallas_tracking_kernel_terminal_weight():
 
 
 def test_fast_sincos_accuracy_and_kernel_parity():
-    """The kernels' default paired-polynomial sin/cos (~2x VPU throughput of
-    the stock lowering) must stay within a few 1e-6 of numpy over the whole
-    plausible angle range (un-wrapped fleet rollouts reach tens of radians),
-    and the kernel's two sincos modes must agree within the engines' parity
-    band."""
-    from ros2_mpc_tpu.solver.pallas_kernel import _fast_sincos
+    """The kernels' paired-polynomial sin/cos must stay within a few 1e-6 of
+    numpy over the whole plausible angle range (un-wrapped fleet rollouts
+    reach tens of radians), and the kernel built on it must agree with the
+    vmap engine (stock jnp.sin/jnp.cos) within the engines' parity band on
+    headings that span several turns."""
+    from ros2_mpc_jax.solver.pallas_kernel import _fast_sincos
 
     x = jnp.asarray(np.linspace(-60.0, 60.0, 400001), dtype=jnp.float32)
     c, s = jax.jit(_fast_sincos)(x)
@@ -155,19 +157,20 @@ def test_fast_sincos_accuracy_and_kernel_parity():
     assert float(jnp.max(jnp.abs(s - np.sin(x64)))) < 5e-6
 
     prob = make_point_stabilization(PARAMS, horizon=N, settings=FAST)
-    thetas, U0 = _bank(prob, 16, seed=9)
-    got_fast = make_pallas_point_stab_solver(
-        prob.ocp, FAST, interpret=True, tile_s=2, tile_l=8, fast_sincos=True
-    )(thetas, U0)
-    got_stock = make_pallas_point_stab_solver(
-        prob.ocp, FAST, interpret=True, tile_s=2, tile_l=8, fast_sincos=False
-    )(thetas, U0)
-    np.testing.assert_allclose(
-        np.asarray(got_fast.U), np.asarray(got_stock.U), atol=5e-4
+    B = 16
+    rng = np.random.default_rng(9)
+    x0 = rng.uniform(-0.3, 0.3, size=(B, 3))
+    x0[:, 2] += 2.0 * np.pi * rng.integers(-5, 6, size=B)  # wound-up headings
+    goal = rng.uniform(-1.2, 1.2, size=(B, 3))
+    goal[:, 2] += x0[:, 2] - x0[:, 2] % (2.0 * np.pi)
+    thetas = jax.vmap(prob.make_theta)(jnp.asarray(x0), jnp.asarray(goal))
+    U0 = jnp.zeros((B, N, 2))
+    ref = jax.jit(jax.vmap(prob.solve))(thetas, U0)
+    got = make_pallas_point_stab_solver(prob.ocp, FAST, interpret=True, tile_s=2, tile_l=8)(
+        thetas, U0
     )
-    np.testing.assert_allclose(
-        np.asarray(got_fast.cost), np.asarray(got_stock.cost), rtol=1e-3
-    )
+    np.testing.assert_allclose(np.asarray(got.U), np.asarray(ref.U), atol=5e-4)
+    np.testing.assert_allclose(np.asarray(got.cost), np.asarray(ref.cost), rtol=1e-3)
 
 
 def test_pallas_kernel_live_prefix_chunking_edges():
@@ -209,3 +212,68 @@ def test_pallas_kernel_live_prefix_chunking_edges():
         thetas0, U0
     )
     np.testing.assert_allclose(np.asarray(got0.U), np.asarray(ref0.U), atol=2e-4)
+
+
+@pytest.mark.parametrize("kind, horizon", [("point", 20), ("point", 40), ("tracking", 20), ("tracking", 40)])
+def test_kernels_cross_lower_for_cuda_at_bench_shapes(kind, horizon):
+    """Compiled route, checked without a card: both kernels lower for CUDA
+    through Triton at the bench shapes (B=4096, 160 obstacle points, the
+    default block). The interpreter enforces none of the Triton backend's
+    rules (no scratch memory, no scalar prefetch, power-of-two loads and
+    stores); this lowering does."""
+    from ros2_mpc_jax.solver import make_tracking
+    from ros2_mpc_jax.solver.pallas_kernel import make_pallas_tracking_solver
+
+    B = 4096
+    if kind == "point":
+        prob = make_point_stabilization(PARAMS, horizon=horizon, reference_parity=False)
+        thetas = jax.vmap(prob.make_theta)(jnp.zeros((B, 3)), jnp.ones((B, 3)))
+        maker = make_pallas_point_stab_solver
+    else:
+        prob = make_tracking(
+            PARAMS, horizon=horizon, reference_parity=False, terminal_weight=(10.0, 10.0, 1.0)
+        )
+        thetas = jax.vmap(prob.make_theta)(
+            jnp.zeros((B, 3)), jnp.zeros((B, horizon, 3)), jnp.zeros((B, horizon, 2))
+        )
+        maker = make_pallas_tracking_solver
+    assert thetas["obs_x"].shape == (B, 160)
+    solve = maker(prob.ocp, prob.settings, interpret=False)
+    text = (
+        jax.jit(solve)
+        .trace(thetas, jnp.zeros((B, horizon, 2)))
+        .lower(lowering_platforms=("cuda",))
+        .as_text()
+    )
+    assert "__gpu$xla.gpu.triton" in text
+    assert ("tracking_solver" if kind == "tracking" else "point_stab_solver") in text
+
+
+@pytest.mark.parametrize("backend, interpret", [("cpu", True), ("gpu", False)])
+def test_pallas_interpret_platform_rule(backend, interpret):
+    from ros2_mpc_jax.solver.pallas_kernel import pallas_interpret
+
+    assert pallas_interpret(backend) is interpret
+    assert pallas_interpret() is True  # the tests run on the CPU backend
+
+
+def test_pallas_interpret_rejects_other_backends():
+    from ros2_mpc_jax.solver.pallas_kernel import pallas_interpret
+
+    with pytest.raises(RuntimeError, match="no Pallas route"):
+        pallas_interpret("rocm")
+
+
+def test_kernel_tile_and_bank_checks():
+    """Blocks are powers of two; compiled rows are whole warps (no scenario
+    replicated across threads); the bank is a whole number of blocks."""
+    prob = make_point_stabilization(PARAMS, horizon=N, settings=FAST)
+    with pytest.raises(ValueError, match="power of two"):
+        make_pallas_point_stab_solver(prob.ocp, FAST, interpret=True, tile_s=3, tile_l=8)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        make_pallas_point_stab_solver(prob.ocp, FAST, interpret=False, tile_s=2, tile_l=16)
+    make_pallas_point_stab_solver(prob.ocp, FAST, interpret=True, tile_s=2, tile_l=16)
+    thetas, U0 = _bank(prob, 24)
+    solve = make_pallas_point_stab_solver(prob.ocp, FAST, interpret=True, tile_s=1, tile_l=16)
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        solve(thetas, U0)

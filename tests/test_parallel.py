@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.parallel import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.parallel import (
     SweepSpec,
     make_bank_solver,
     make_host_chip_mesh,
@@ -15,7 +15,7 @@ from ros2_mpc_tpu.parallel import (
     run_sweep,
     shard_bank,
 )
-from ros2_mpc_tpu.solver import SolverSettings, make_point_stabilization
+from ros2_mpc_jax.solver import SolverSettings, make_point_stabilization
 
 PARAMS = Params()
 FAST = SolverSettings(barrier_stages=3, iters_per_stage=3, n_alphas=6)
@@ -96,7 +96,7 @@ def test_sharded_pallas_engine_matches():
 
 def test_sharded_pallas_tracking_engine_matches():
     """Sharded tracking Pallas kernel == vmap on the 8-device mesh."""
-    from ros2_mpc_tpu.solver import make_tracking
+    from ros2_mpc_jax.solver import make_tracking
 
     N = 6
     prob = make_tracking(PARAMS, horizon=N, settings=FAST, reference_parity=False)
@@ -190,7 +190,7 @@ def test_composite_engines_on_mesh():
 
     tp_step = make_bank_solver(
         prob, mesh, engine="two_pass",
-        capacity=8, tile_s=2, tile_l=8, rescue_tile_s=2,
+        capacity=8, tile_s=2, tile_l=8,
     )
     tp, _ = tp_step(shard_bank(thetas, mesh), shard_bank(U0, mesh))
     assert np.all(
@@ -211,7 +211,7 @@ def test_pallas_engine_solves_terminal_cost_problems():
     the sharded Pallas engine and match the vmap engine — the round-3
     engine-generality seam (the kernel used to reject nonzero terminal
     weights) is closed."""
-    from ros2_mpc_tpu.solver import make_tracking
+    from ros2_mpc_jax.solver import make_tracking
 
     N = 5
     prob = make_tracking(Params(), horizon=N, terminal_weight=(10.0, 10.0, 1.0))
@@ -237,7 +237,7 @@ def test_sharded_fleet_rollout_matches_unsharded():
     produce the same trajectories and fleet statistics as the single-device
     rollout — robots are independent, so sharding must be exact up to f32
     reduction order."""
-    from ros2_mpc_tpu.parallel.fleet import (
+    from ros2_mpc_jax.parallel.fleet import (
         make_fleet_rollout,
         make_sharded_fleet_rollout,
         random_fleet,
@@ -271,7 +271,7 @@ def test_sharded_fleet_rollout_matches_unsharded():
 def test_sharded_fleet_rollout_fast_engine_records_trajectories():
     """Sharded fleet with the lane-aligned engine + trajectory recording:
     the (T+1, B, 3) trace shards over the robot axis, and every robot moves."""
-    from ros2_mpc_tpu.parallel.fleet import make_sharded_fleet_rollout, random_fleet
+    from ros2_mpc_jax.parallel.fleet import make_sharded_fleet_rollout, random_fleet
 
     prob = _problem(horizon=6)
     B = 64  # 8 per device, lanes=8
@@ -294,8 +294,8 @@ def test_fleet_rollout_validates_engine_and_problem():
     the wrong thing."""
     import pytest
 
-    from ros2_mpc_tpu.parallel.fleet import make_fleet_rollout
-    from ros2_mpc_tpu.solver import make_tracking
+    from ros2_mpc_jax.parallel.fleet import make_fleet_rollout
+    from ros2_mpc_jax.solver import make_tracking
 
     prob = _problem(horizon=6)
     # engine_opts with the default vmap engine: silent no-op before, error now
@@ -310,21 +310,23 @@ def test_fleet_rollout_validates_engine_and_problem():
     assert "terminal_cost" in trk_term.tags
 
 
-def test_fleet_rollout_pallas_requires_tpu_or_explicit_interpret():
-    """Off-TPU, engine='pallas' without an explicit interpret=True must fail
-    (so device_tick_rate's try/except falls back to the vmap engine instead
-    of silently benchmarking the interpreter), while the sharded CPU-mesh
-    path keeps its interpret default for tests/dryruns."""
-    import pytest
-
-    from ros2_mpc_tpu.parallel.fleet import make_fleet_rollout, random_fleet
+def test_fleet_rollout_pallas_follows_the_platform_rule():
+    """engine='pallas' takes no interpret flag from its callers:
+    solver.pallas_kernel.pallas_interpret decides in one place — interpreted
+    here on the CPU, compiled on a GPU — so the plain fleet rollout runs the
+    kernel and its closed loop matches the vmap engine's."""
+    from ros2_mpc_jax.parallel.fleet import make_fleet_rollout, random_fleet
 
     assert jax.default_backend() == "cpu"
     prob = _problem(horizon=4)
     thetas, U0 = random_fleet(prob, B=8, seed=0)
-    rollout = make_fleet_rollout(prob, n_ticks=2, dt=PARAMS.dt, engine="pallas")
-    with pytest.raises(Exception):
-        jax.block_until_ready(rollout(thetas, U0))
+    pal = make_fleet_rollout(prob, n_ticks=2, dt=PARAMS.dt, engine="pallas", tile_s=1, tile_l=8)
+    ref = make_fleet_rollout(prob, n_ticks=2, dt=PARAMS.dt)
+    np.testing.assert_allclose(
+        np.asarray(pal(thetas, U0).final_states),
+        np.asarray(ref(thetas, U0).final_states),
+        atol=1e-4,
+    )
 
 
 def test_sharded_mppi_engine():
@@ -332,7 +334,7 @@ def test_sharded_mppi_engine():
     derived from the GLOBAL scenario index inside the jit, so the sharded
     result must equal the single-program (unsharded-trace) result exactly,
     independent of the mesh layout."""
-    from ros2_mpc_tpu.solver.mppi import MppiSettings, make_mppi_solver
+    from ros2_mpc_jax.solver.mppi import MppiSettings, make_mppi_solver
 
     prob = _problem(horizon=6)
     B = 16
@@ -359,7 +361,7 @@ def test_sharded_mppi_engine():
 def test_sharded_hybrid_engine_never_worse_than_vmap():
     """engine='hybrid' on the mesh: converged count and costs must not lose
     to the plain local engine (the hybrid keeps the better of the two)."""
-    from ros2_mpc_tpu.solver.mppi import MppiSettings
+    from ros2_mpc_jax.solver.mppi import MppiSettings
 
     prob = _problem(horizon=6)
     B = 16
@@ -394,7 +396,7 @@ def test_bank_solver_rejects_unknown_engine_and_stray_opts():
 def test_sharded_multistart_engine():
     """engine='multistart' on the mesh: converged fraction and costs must
     not lose to the plain vmap engine (the warm start is one candidate)."""
-    from ros2_mpc_tpu.solver.mppi import MppiSettings
+    from ros2_mpc_jax.solver.mppi import MppiSettings
 
     prob = _problem(horizon=6)
     B = 16

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.solver.parallel_riccati import (
+from ros2_mpc_jax.solver.parallel_riccati import (
     LQRProblem,
     lqr_backward_parallel,
     lqr_backward_sequential,
@@ -84,8 +84,8 @@ def test_policies_minimize_the_qp():
 def test_solver_with_horizon_parallel_backward():
     """settings.horizon_parallel routes the inner sweep through the
     associative scan; solutions must match the sequential solver."""
-    from ros2_mpc_tpu.config import Params
-    from ros2_mpc_tpu.solver import SolverSettings, make_point_stabilization
+    from ros2_mpc_jax.config import Params
+    from ros2_mpc_jax.solver import SolverSettings, make_point_stabilization
 
     P = Params()
     N = 16

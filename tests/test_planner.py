@@ -3,7 +3,7 @@ plus API parity for the three reference planner classes."""
 
 import numpy as np
 
-from ros2_mpc_tpu.planner import (
+from ros2_mpc_jax.planner import (
     AstarGlobalPlanner,
     AStarPlanner2,
     RRTGlobalPlanner,
@@ -11,8 +11,8 @@ from ros2_mpc_tpu.planner import (
     get_points_on_lines,
     wavefront,
 )
-from ros2_mpc_tpu.planner.astar_py import astar_path_py
-from ros2_mpc_tpu.planner.native import astar_path_native
+from ros2_mpc_jax.planner.astar_py import astar_path_py
+from ros2_mpc_jax.planner.native import astar_path_native
 
 
 def make_corridor(h=30, w=40):

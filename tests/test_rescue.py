@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.solver import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.solver import (
     SolverSettings,
     make_point_stabilization,
     make_two_pass_solver,
 )
-from ros2_mpc_tpu.solver.ilqr import make_solver
+from ros2_mpc_jax.solver.ilqr import make_solver
 
 PARAMS = Params()
 N = 10
@@ -86,8 +86,8 @@ def test_two_pass_capacity_overflow_keeps_first_pass_iterates():
 
 def test_two_pass_pallas_interpret_smoke():
     """The fused Pallas/Pallas two-pass compiles and improves convergence in
-    interpreter mode (the TPU path's exact program, tiny tiles)."""
-    from ros2_mpc_tpu.solver import make_pallas_two_pass_point_stab
+    interpreter mode (the GPU path's exact program, tiny tiles)."""
+    from ros2_mpc_jax.solver import make_pallas_two_pass_point_stab
 
     prob, thetas, U0 = _obstacle_bank(B=32, seed=3)
     tp = jax.jit(
@@ -99,11 +99,10 @@ def test_two_pass_pallas_interpret_smoke():
             interpret=True,
             tile_s=2,
             tile_l=8,
-            rescue_tile_s=2,
         )
     )
     sols2 = tp(thetas, U0)
-    from ros2_mpc_tpu.solver.pallas_kernel import make_pallas_point_stab_solver
+    from ros2_mpc_jax.solver.pallas_kernel import make_pallas_point_stab_solver
 
     sols1 = make_pallas_point_stab_solver(
         prob.ocp, WEAK, interpret=True, tile_s=2, tile_l=8
@@ -117,8 +116,8 @@ def test_two_pass_pallas_interpret_smoke():
 def test_two_pass_tracking_interpret_smoke():
     """The tracking twin (Pallas tracking first pass + rescue, one jit)
     improves convergence on an obstacle-active tracking bank."""
-    from ros2_mpc_tpu.solver import make_pallas_two_pass_tracking, make_tracking
-    from ros2_mpc_tpu.solver.pallas_kernel import make_pallas_tracking_solver
+    from ros2_mpc_jax.solver import make_pallas_two_pass_tracking, make_tracking
+    from ros2_mpc_jax.solver.pallas_kernel import make_pallas_tracking_solver
 
     prob = make_tracking(PARAMS, horizon=N, reference_parity=False)
     B = 32
@@ -142,7 +141,7 @@ def test_two_pass_tracking_interpret_smoke():
     tp = jax.jit(
         make_pallas_two_pass_tracking(
             prob.ocp, WEAK, capacity=8, rescue_settings=STRONG,
-            interpret=True, tile_s=2, tile_l=8, rescue_tile_s=2,
+            interpret=True, tile_s=2, tile_l=8,
         )
     )
     sols2 = tp(thetas, U0)
@@ -158,12 +157,12 @@ def test_two_pass_tracking_interpret_smoke():
 
 
 def test_two_pass_rejects_bad_rescue_tile():
-    from ros2_mpc_tpu.solver import make_pallas_two_pass_point_stab
+    from ros2_mpc_jax.solver import make_pallas_two_pass_point_stab
 
     prob, _, _ = _obstacle_bank(B=8, seed=4)
     with pytest.raises(ValueError, match="multiple"):
         make_pallas_two_pass_point_stab(
-            prob.ocp, WEAK, capacity=6, tile_l=8, rescue_tile_s=5
+            prob.ocp, WEAK, capacity=6, tile_l=8
         )
 
 
@@ -171,7 +170,7 @@ def test_kkt_polish_monotone_and_improves():
     """The box-DDP KKT-descent polish (solver/batched.py): per-row residuals
     are monotone non-increasing by construction, and a weak-schedule bank is
     measurably improved — the f32 last-mile stage of the composite."""
-    from ros2_mpc_tpu.solver import make_bank_kkt_polish
+    from ros2_mpc_jax.solver import make_bank_kkt_polish
 
     prob, thetas, U0 = _obstacle_bank(B=16, seed=3)
     first = jax.jit(jax.vmap(make_solver(prob.ocp, WEAK)))
@@ -190,7 +189,7 @@ def test_multistart_rescue_mesh_engine():
     """The composed robustness mode is on the mesh menu: per-shard
     multistart first pass + rescue + polish, sharded over the 8-device
     virtual mesh."""
-    from ros2_mpc_tpu.parallel import make_bank_solver, make_mesh, shard_bank
+    from ros2_mpc_jax.parallel import make_bank_solver, make_mesh, shard_bank
 
     prob, thetas, U0 = _obstacle_bank(B=32, seed=4)
     mesh = make_mesh()

@@ -195,10 +195,10 @@ def adapter():
     """ros_adapter imported against the fake rclpy; restores sys.modules."""
     fakes = _make_fake_rclpy()
     saved = {k: sys.modules.get(k) for k in fakes}
-    saved_adapter = sys.modules.pop("ros2_mpc_tpu.nodes.ros_adapter", None)
+    saved_adapter = sys.modules.pop("ros2_mpc_jax.nodes.ros_adapter", None)
     sys.modules.update(fakes)
     try:
-        mod = importlib.import_module("ros2_mpc_tpu.nodes.ros_adapter")
+        mod = importlib.import_module("ros2_mpc_jax.nodes.ros_adapter")
         mod = importlib.reload(mod)
         assert mod.HAVE_RCLPY
         yield mod, fakes["rclpy"]
@@ -209,13 +209,13 @@ def adapter():
             else:
                 sys.modules[k] = v
         if saved_adapter is not None:
-            sys.modules["ros2_mpc_tpu.nodes.ros_adapter"] = saved_adapter
+            sys.modules["ros2_mpc_jax.nodes.ros_adapter"] = saved_adapter
         else:
-            sys.modules.pop("ros2_mpc_tpu.nodes.ros_adapter", None)
+            sys.modules.pop("ros2_mpc_jax.nodes.ros_adapter", None)
 
 
 def _bridge(mod):
-    from ros2_mpc_tpu.nodes.bus import MessageBus
+    from ros2_mpc_jax.nodes.bus import MessageBus
 
     bus = MessageBus()
     return bus, mod.RclpyBusBridge(bus)
@@ -270,7 +270,7 @@ def test_cmd_vel_flows_bus_to_dds(adapter):
     with linear.x / angular.z mapped (the differential-drive channels the
     reference publishes, ros_topics.py:49-52)."""
     mod, rclpy = adapter
-    from ros2_mpc_tpu.nodes.bus import Twist
+    from ros2_mpc_jax.nodes.bus import Twist
 
     bus, bridge = _bridge(mod)
     bus.publish("cmd_vel", Twist(linear_x=0.15, angular_z=-0.2))
@@ -287,9 +287,9 @@ def test_operator_topics_flow_bus_to_dds(adapter):
     """The operator cockpit's displays (smoothed_plan Path, /map and the
     two costmap OccupancyGrids) must mirror from the bus onto DDS with the
     reference's row-major layout (ros_topics.py:145-193) so
-    config/rviz_tpu_mpc.rviz renders them."""
+    config/rviz_jax_mpc.rviz renders them."""
     mod, rclpy = adapter
-    from ros2_mpc_tpu.nodes.bus import (
+    from ros2_mpc_jax.nodes.bus import (
         MapMetaData,
         MessageBus,
         OccupancyGrid,
@@ -297,7 +297,7 @@ def test_operator_topics_flow_bus_to_dds(adapter):
         PoseStamped,
         Quaternion,
     )
-    from ros2_mpc_tpu.nodes.bus import Path as BusPath
+    from ros2_mpc_jax.nodes.bus import Path as BusPath
 
     bus = MessageBus()
     bridge = mod.RclpyBusBridge(bus)
@@ -376,7 +376,7 @@ def test_context_lifecycle_idempotent_init_and_close(adapter):
     """Init must be idempotent (an embedding host may own the context) and
     close() must destroy the node and release the context exactly once."""
     mod, rclpy = adapter
-    from ros2_mpc_tpu.nodes.bus import MessageBus
+    from ros2_mpc_jax.nodes.bus import MessageBus
 
     bus = MessageBus()
     bridge = mod.RclpyBusBridge(bus)

@@ -3,11 +3,11 @@ reference lacks — its MPC output goes straight to the motors."""
 
 import numpy as np
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.nodes.bus import LaserScan, MessageBus, Twist
-from ros2_mpc_tpu.nodes.launch import build_sim_stack
-from ros2_mpc_tpu.nodes.safety import SafetyMonitorNode
-from ros2_mpc_tpu.utils import pgm
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.nodes.bus import LaserScan, MessageBus, Twist
+from ros2_mpc_jax.nodes.launch import build_sim_stack
+from ros2_mpc_jax.nodes.safety import SafetyMonitorNode
+from ros2_mpc_jax.utils import pgm
 
 
 def _scan(front=np.inf, rear=np.inf, n=360):

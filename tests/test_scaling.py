@@ -3,9 +3,9 @@ benchmark harness, and the sweep CLI table."""
 
 import numpy as np
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.parallel import scaling_bench
-from ros2_mpc_tpu.solver import SolverSettings, make_tracking
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.parallel import scaling_bench
+from ros2_mpc_jax.solver import SolverSettings, make_tracking
 
 PARAMS = Params()
 
@@ -75,8 +75,8 @@ def test_scaling_bench_all_engines(tmp_path):
 
 
 def test_sweep_cli_prints_table(capsys):
-    from ros2_mpc_tpu.parallel.sweep import SweepSpec, run_sweep
-    from ros2_mpc_tpu.solver import make_point_stabilization
+    from ros2_mpc_jax.parallel.sweep import SweepSpec, run_sweep
+    from ros2_mpc_jax.solver import make_point_stabilization
 
     prob = make_point_stabilization(
         PARAMS, horizon=5, settings=SolverSettings(barrier_stages=2, iters_per_stage=2, n_alphas=4)
@@ -90,8 +90,8 @@ def test_fleet_closed_loop_reaches_goals():
     """Whole fleet closed loop under one jit: most open-floor scenarios must
     reach their goals within the tick budget."""
 
-    from ros2_mpc_tpu.parallel.fleet import make_fleet_rollout, random_fleet
-    from ros2_mpc_tpu.solver import make_point_stabilization
+    from ros2_mpc_jax.parallel.fleet import make_fleet_rollout, random_fleet
+    from ros2_mpc_jax.solver import make_point_stabilization
 
     # horizon >= 20 (4 s lookahead): shorter horizons park at a standoff
     # where within-horizon turn gains vanish (same effect the follower's
@@ -110,17 +110,17 @@ def test_fleet_closed_loop_reaches_goals():
 
 
 def test_sweep_engine_option_matches_vmap():
-    """run_sweep engine='pallas' (interpret off-TPU) must reproduce the vmap
+    """run_sweep engine='pallas' (interpreted on the CPU) must reproduce the vmap
     sweep's per-config quality (same thetas, same algorithm)."""
-    from ros2_mpc_tpu.parallel.sweep import SweepSpec, run_sweep
-    from ros2_mpc_tpu.solver import make_point_stabilization
+    from ros2_mpc_jax.parallel.sweep import SweepSpec, run_sweep
+    from ros2_mpc_jax.solver import make_point_stabilization
 
     settings = SolverSettings(barrier_stages=2, iters_per_stage=2, n_alphas=4)
     prob = make_point_stabilization(PARAMS, horizon=5, settings=settings)
-    # 2 configs x 512 = 1024 scenarios: exactly one (8, 128) kernel tile grid
     spec = SweepSpec(q_scales=(0.5, 1.0), r_scales=(1.0,), scenarios_per_config=512)
     out_v = run_sweep(prob, spec, engine="vmap")
-    # 1024 scenarios over the 8-device mesh -> 128 per shard: one (1, 128) tile
+    # 2 configs x 512 = 1024 scenarios over the 8-device mesh -> 128 per
+    # shard: one (1, 128) block
     out_p = run_sweep(prob, spec, engine="pallas", tile_s=1, tile_l=128)
     np.testing.assert_allclose(
         out_p["mean_goal_error"], out_v["mean_goal_error"], atol=2e-4

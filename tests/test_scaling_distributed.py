@@ -1,4 +1,4 @@
-"""Multi-process (DCN-analogue) scaling measurement: the 2-process x
+"""Multi-process (multi-host analogue) scaling measurement: the 2-process x
 4-virtual-device global mesh must deliver a recorded efficiency number per
 engine (VERDICT r03 weak #5 — the multi-host path previously had no
 throughput measurement with collectives in the loop)."""
@@ -9,7 +9,7 @@ pytestmark = pytest.mark.slow
 
 
 def test_distributed_scaling_floor():
-    from ros2_mpc_tpu.parallel.scaling_bench import run_distributed
+    from ros2_mpc_jax.parallel.scaling_bench import run_distributed
 
     out = run_distributed()
     assert out["processes"] == 2

@@ -10,8 +10,8 @@ import threading
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.nodes.bus import Transform, Twist
-from ros2_mpc_tpu.nodes.shm_bus import SharedMemoryBus, load
+from ros2_mpc_jax.nodes.bus import Transform, Twist
+from ros2_mpc_jax.nodes.shm_bus import SharedMemoryBus, load
 
 
 def _bus_path():
@@ -160,7 +160,7 @@ def test_multiprocess_nav_reaches_goal():
     planner, costmaps, and MPC follower (launch_all.launch.py:8-64) — rebuilt
     over the shared-memory bus: the robot must still reach the goal with
     every topic crossing a process boundary."""
-    from ros2_mpc_tpu.nodes.multiproc import run_multiprocess
+    from ros2_mpc_jax.nodes.multiproc import run_multiprocess
 
     stats = run_multiprocess(follower="point", duration=120.0, horizon=12)
     assert stats["goal_reached"], stats
@@ -177,7 +177,7 @@ def test_multiprocess_with_safety_role():
     publishes cmd_vel_raw, the monitor process gates to cmd_vel, and the
     robot still reaches the goal on a clear route (guard transparent); the
     supervisor surfaces the monitor's counters over the bus heartbeat."""
-    from ros2_mpc_tpu.nodes.multiproc import run_multiprocess
+    from ros2_mpc_jax.nodes.multiproc import run_multiprocess
 
     stats = run_multiprocess(
         follower="point", duration=150.0, horizon=12, safety_stop=0.2

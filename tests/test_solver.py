@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 
 import oracle
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.solver import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.solver import (
     make_legacy_point_stabilization,
     make_point_stabilization,
     make_tracking,
@@ -50,7 +50,7 @@ def test_point_stabilization_matches_oracle(point_stab):
         u_hi=(PARAMS.pointstab_v_bounds[1], PARAMS.pointstab_w_bounds[1]),
     )
     err = np.max(np.abs(np.asarray(sol.U) - U_ref))
-    assert err <= 1e-3, f"control error {err:.2e} vs oracle (J={J_ref:.6f}, J_tpu={float(sol.cost):.6f})"
+    assert err <= 1e-3, f"control error {err:.2e} vs oracle (J={J_ref:.6f}, J_solver={float(sol.cost):.6f})"
     assert float(sol.cost) <= J_ref + 1e-4
 
 
@@ -207,7 +207,7 @@ def test_corrected_point_stab_with_active_obstacles_matches_oracle():
 def test_packed_solve_matches_dict_theta(point_stab, tracking):
     """solver/packed.py: the single-transfer packed path must be bit-identical
     to the dict-theta path for both live formulations."""
-    from ros2_mpc_tpu.solver.packed import make_packed_point_stab, make_packed_tracking
+    from ros2_mpc_jax.solver.packed import make_packed_point_stab, make_packed_tracking
 
     rng = np.random.default_rng(5)
     x0 = rng.uniform(-0.3, 0.3, 3)
@@ -235,8 +235,8 @@ def test_terminal_pose_cost_parks_instead_of_orbiting():
     """ROADMAP: with the reference formulation (no terminal cost, quirk #5)
     the receding-horizon tracker *orbits* a misaligned goal; the per-axis
     terminal pose cost parks it. Both behaviors pinned."""
-    from ros2_mpc_tpu.models import unicycle
-    from ros2_mpc_tpu.ops.integrators import rk4_step
+    from ros2_mpc_jax.models import unicycle
+    from ros2_mpc_jax.ops.integrators import rk4_step
 
     goal = np.array([0.5, 0.4, 0.0])
     x_ref = np.tile(goal, (N, 1))

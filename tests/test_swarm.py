@@ -1,19 +1,19 @@
-"""On-chip multi-robot swarm rollouts (parallel/fleet.py swarm API): mutual
+"""On-device multi-robot swarm rollouts (parallel/fleet.py swarm API): mutual
 avoidance through live obstacle costs, single jit, sharded variant with
 per-tick position/velocity all_gathers over the mesh."""
 
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.parallel import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.parallel import (
     circle_swarm,
     make_mesh,
     make_sharded_swarm_rollout,
     make_swarm_rollout,
     shard_bank,
 )
-from ros2_mpc_tpu.solver import SolverSettings, make_point_stabilization
+from ros2_mpc_jax.solver import SolverSettings, make_point_stabilization
 
 PARAMS = Params()
 SETTINGS = SolverSettings(barrier_stages=4, iters_per_stage=3, n_alphas=6)

@@ -9,15 +9,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.parallel.fleet import (
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.parallel.fleet import (
     _tracking_window,
     arc_path_fleet,
     make_sharded_tracking_fleet_rollout,
     make_tracking_fleet_rollout,
 )
-from ros2_mpc_tpu.parallel.mesh import make_mesh, shard_bank
-from ros2_mpc_tpu.solver import SolverSettings, make_tracking
+from ros2_mpc_jax.parallel.mesh import make_mesh, shard_bank
+from ros2_mpc_jax.solver import SolverSettings, make_tracking
 
 PARAMS = Params()
 FAST = SolverSettings(barrier_stages=4, iters_per_stage=3, n_alphas=6)
@@ -32,7 +32,7 @@ def test_tracking_window_matches_host_reference_gen():
     """The in-jit window generator must agree with the host-side
     quirk-faithful helper (nodes/reference_gen.py::tracking_reference_window)
     on anchor choice, clamping, and the 0.5 m terminal latch."""
-    from ros2_mpc_tpu.nodes.reference_gen import tracking_reference_window
+    from ros2_mpc_jax.nodes.reference_gen import tracking_reference_window
 
     rng = np.random.default_rng(0)
     P = 20
@@ -156,8 +156,29 @@ def test_sharded_tracking_fleet_matches_unsharded():
     )
 
 
+def test_sharded_tracking_fleet_records_ticks_like_unsharded():
+    """record=True returns the (T+1, B, 3) states and the (T, B) per-tick
+    convergence flags, sharded or not."""
+    prob = _problem()
+    B, n_ticks = 16, 3
+    thetas, paths, U0 = arc_path_fleet(prob, B=B, n_waypoints=32, seed=6)
+    plain = make_tracking_fleet_rollout(prob, n_ticks, PARAMS.dt, record=True)(
+        thetas, paths, U0
+    )
+    mesh = make_mesh(8)
+    sharded = make_sharded_tracking_fleet_rollout(prob, mesh, n_ticks, PARAMS.dt, record=True)(
+        shard_bank(thetas, mesh), shard_bank(paths, mesh), shard_bank(U0, mesh)
+    )
+    assert plain.trajectories.shape == (n_ticks + 1, B, 3)
+    assert plain.converged.shape == (n_ticks, B) and plain.converged.dtype == jnp.bool_
+    np.testing.assert_allclose(
+        np.asarray(sharded.trajectories), np.asarray(plain.trajectories), atol=1e-5
+    )
+    np.testing.assert_array_equal(np.asarray(sharded.converged), np.asarray(plain.converged))
+
+
 def test_tracking_fleet_rejects_point_stab_problem():
-    from ros2_mpc_tpu.solver import make_point_stabilization
+    from ros2_mpc_jax.solver import make_point_stabilization
 
     prob = make_point_stabilization(PARAMS, horizon=N, settings=FAST)
     with pytest.raises(ValueError, match="tracking"):

@@ -3,10 +3,11 @@
 import os
 
 import numpy as np
+import pytest
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.parallel import distributed
-from ros2_mpc_tpu.utils import Telemetry, pgm, viz
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.parallel import distributed
+from ros2_mpc_jax.utils import Telemetry, flat_yaml, pgm, viz
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -28,7 +29,7 @@ def test_read_ascii_pgm(tmp_path):
 
 
 def test_shipped_assets_load():
-    p = Params.load(os.path.join(REPO, "ros2_mpc_tpu", "assets", "params.yaml"))
+    p = Params.load(os.path.join(REPO, "ros2_mpc_jax", "assets", "params.yaml"))
     assert p.dt == 0.2 and p.N == 30 and p.Q == (1.0, 1.0, 0.005)
     img = pgm.read_pgm(os.path.join(REPO, "maps", "map_synthetic.pgm"))
     meta = pgm.load_map_yaml(os.path.join(REPO, "maps", "map_synthetic.yaml"))
@@ -38,15 +39,78 @@ def test_shipped_assets_load():
 
 
 def test_params_yaml_roundtrip(tmp_path):
-    import yaml
-
     p = Params(dt=0.1, N=15)
     path = str(tmp_path / "params.yaml")
     with open(path, "w") as fh:
-        yaml.safe_dump(p.to_yaml_dict(), fh)
+        fh.writelines(f"{k}: {v}\n" for k, v in p.to_yaml_dict().items())
     p2 = Params.load(path)
     assert p2.dt == 0.1 and p2.N == 15
     assert p2.n_obstacle_points == p.n_obstacle_points
+
+
+# the shipped files' contents as a YAML library parses them
+_MAP_META = {"mode": "trinary", "resolution": 0.05, "negate": 0,
+             "occupied_thresh": 0.65, "free_thresh": 0.25}
+
+
+@pytest.mark.parametrize(
+    "rel, expected",
+    [
+        (
+            "ros2_mpc_jax/assets/params.yaml",
+            {"dt": 0.2, "N": 30, "Q": [1.0, 1.0, 0.005], "R": [1.0, 1.0],
+             "resolution": 0.05, "cost_factor": 0.5, "costmap_size": 2.0,
+             "inflation_radius": 0.2, "reverse_factor": 5.0, "rotation_factor": 2.0,
+             "look_ahead_distance": 0.5, "goal_threshold": 0.2},
+        ),
+        ("maps/map_home.yaml",
+         {"image": "map_home.pgm", "origin": [-5.6, -7.85, 0], **_MAP_META}),
+        ("maps/map_synthetic.yaml",
+         {"image": "map_synthetic.pgm", "origin": [-6.25, -6.25, 0], **_MAP_META}),
+    ],
+)
+def test_flat_yaml_reads_shipped_files(rel, expected):
+    got = flat_yaml.load(os.path.join(REPO, rel))
+    assert got == expected
+    assert all(type(got[k]) is type(v) for k, v in expected.items())
+
+
+def test_flat_yaml_inline_lists_comments_and_errors():
+    text = "# map\nimage: 'a b.pgm'  # quoted\norigin: [-1.5, 2, 0]\nempty: []\nflag: true\n"
+    assert flat_yaml.loads(text) == {
+        "image": "a b.pgm", "origin": [-1.5, 2, 0], "empty": [], "flag": True
+    }
+    with pytest.raises(ValueError, match="nested"):
+        flat_yaml.loads("a:\n  b: 1\n")
+    with pytest.raises(ValueError, match="outside a list"):
+        flat_yaml.loads("- 1\n")
+
+
+def test_map_paths_default_to_packaged_map():
+    pgm_path, yaml_path = pgm.map_paths({})
+    assert os.path.samefile(pgm_path, os.path.join(REPO, "maps", "map_synthetic.pgm"))
+    assert os.path.samefile(yaml_path, os.path.join(REPO, "maps", "map_synthetic.yaml"))
+
+
+def test_map_server_loads_the_map_the_variables_name(tmp_path):
+    from ros2_mpc_jax.nodes.bus import MessageBus
+    from ros2_mpc_jax.nodes.map_server import MapServerNode
+
+    img = pgm.synthetic_indoor_map(80, 100, seed=3)
+    pgm.write_pgm(str(tmp_path / "m.pgm"), img)
+    (tmp_path / "m.yaml").write_text("image: m.pgm\nresolution: 0.1\norigin: [-2.0, -3.0, 0]\n")
+    env = {pgm.MAP_PGM_VAR: str(tmp_path / "m.pgm"), pgm.MAP_YAML_VAR: str(tmp_path / "m.yaml")}
+    pgm_path, yaml_path = pgm.map_paths(env)
+    assert (pgm_path, yaml_path) == (env[pgm.MAP_PGM_VAR], env[pgm.MAP_YAML_VAR])
+    node = MapServerNode(MessageBus(), map_pgm_path=pgm_path, map_yaml_path=yaml_path)
+    assert node.map_image.shape == (80, 100)
+    assert node.map_info == {"resolution": 0.1, "origin": [-2.0, -3.0]}
+
+
+@pytest.mark.parametrize("stray", ["OLD_MPC_MAP_PGM", "OLD_MPC_MAP_YAML"])
+def test_map_paths_refuse_a_map_variable_they_do_not_read(stray):
+    with pytest.raises(RuntimeError, match=stray):
+        pgm.map_paths({stray: "/elsewhere/map", pgm.MAP_PGM_VAR: "/x.pgm"})
 
 
 def test_viz_render_png(tmp_path):

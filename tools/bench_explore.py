@@ -46,12 +46,12 @@ def timed_solve(prob, B, reps=3, label=""):
 def main():
     import jax.numpy as jnp
 
-    from ros2_mpc_tpu.config import Params
-    from ros2_mpc_tpu.models import unicycle
-    from ros2_mpc_tpu.ops import costs
-    from ros2_mpc_tpu.ops.integrators import make_step
-    from ros2_mpc_tpu.solver.ilqr import SolverSettings, make_solver
-    from ros2_mpc_tpu.solver.problems import Problem, make_point_stabilization
+    from ros2_mpc_jax.config import Params
+    from ros2_mpc_jax.models import unicycle
+    from ros2_mpc_jax.ops import costs
+    from ros2_mpc_jax.ops.integrators import make_step
+    from ros2_mpc_jax.solver.ilqr import SolverSettings, make_solver
+    from ros2_mpc_jax.solver.problems import Problem, make_point_stabilization
 
     params = Params()
     N = 20

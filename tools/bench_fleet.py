@@ -1,18 +1,19 @@
-"""Fleet closed-loop throughput on TPU: robots x ticks per second."""
+"""Fleet closed-loop throughput on the default device: robots x ticks per second."""
 
+import os
 import sys
 import time
 
-
-sys.path.insert(0, "/root/repo")
+# runnable as `python tools/bench_fleet.py` without installing the package
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(engine="pallas", B=4096, T=100, N=20):
     import jax
 
-    from ros2_mpc_tpu.config import Params
-    from ros2_mpc_tpu.parallel.fleet import make_fleet_rollout, random_fleet
-    from ros2_mpc_tpu.solver import SolverSettings, make_point_stabilization
+    from ros2_mpc_jax.config import Params
+    from ros2_mpc_jax.parallel.fleet import make_fleet_rollout, random_fleet
+    from ros2_mpc_jax.solver import SolverSettings, make_point_stabilization
 
     P = Params()
     prob = make_point_stabilization(P, horizon=N, settings=SolverSettings.realtime())

@@ -1,12 +1,12 @@
-"""Monte-Carlo tuning sweep at BASELINE config-5 scale, on the available
-hardware: 25 (Q, R) weight configs x 4096 scenarios = 102,400 N=20 NMPC
-solves per sweep tick (the "~100k solves/tick" target), evaluated with the
-whole-solver Pallas kernel. Writes a JSON artifact (default SWEEP.json;
-pass the output path as argv[1] — e.g. SWEEP_r04.json per round).
+"""Monte-Carlo tuning sweep at BASELINE config-5 scale: 25 (Q, R) weight
+configs x 4096 scenarios = 102,400 N=20 NMPC solves per sweep tick (the
+"~100k solves/tick" target), evaluated with the whole-solver Pallas kernel
+(compiled on a GPU, interpreted on the CPU). Writes a JSON artifact
+(default SWEEP.json; pass the output path as argv[1]).
 
-On a multi-host slice the same sweep shards over the global mesh
+On several devices the same sweep shards over the global mesh
 (parallel/mesh.py + parallel/distributed.py); this artifact records the
-single-chip number the pod run divides by.
+one-device number the sharded run divides by.
 """
 
 from __future__ import annotations
@@ -24,28 +24,25 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main(out_path: str = "SWEEP.json"):
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tpu_mpc")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from ros2_mpc_jax.config import Params
+    from ros2_mpc_jax.parallel.sweep import SweepSpec, run_sweep
+    from ros2_mpc_jax.solver import make_point_stabilization
+    from ros2_mpc_jax.utils.compile_cache import enable_compile_cache
 
-    from ros2_mpc_tpu.config import Params
-    from ros2_mpc_tpu.parallel.sweep import SweepSpec, run_sweep
-    from ros2_mpc_tpu.solver import make_point_stabilization
-
+    enable_compile_cache()
     params = Params()
     prob = make_point_stabilization(params, horizon=20)
     spec = SweepSpec(scenarios_per_config=4096)
     n_solves = len(spec.q_scales) * len(spec.r_scales) * spec.scenarios_per_config
-    engine = "pallas" if jax.default_backend() == "tpu" else "vmap"
-
-    run_sweep(prob, spec, params=params, engine=engine)  # compile
+    run_sweep(prob, spec, params=params, engine="pallas")  # compile
     t0 = time.perf_counter()
-    out = run_sweep(prob, spec, params=params, engine=engine)
+    out = run_sweep(prob, spec, params=params, engine="pallas")
     wall = time.perf_counter() - t0
 
     artifact = {
         "backend": jax.default_backend(),
         "device": jax.devices()[0].device_kind,
-        "engine": engine,
+        "engine": "pallas",
         "n_configs": int(out["configs"].shape[0]),
         "scenarios_per_config": spec.scenarios_per_config,
         "n_solves_per_tick": n_solves,

@@ -28,8 +28,8 @@ def solve_scenario():
     import jax
     import jax.numpy as jnp
 
-    from ros2_mpc_tpu.config import Params
-    from ros2_mpc_tpu.solver import (
+    from ros2_mpc_jax.config import Params
+    from ros2_mpc_jax.solver import (
         MppiSettings,
         make_multistart_solver,
         make_point_stabilization,
@@ -65,7 +65,7 @@ def solve_scenario():
 
 
 def main(out_path="docs/demo_escape.png"):
-    from ros2_mpc_tpu.utils.viz import _write_png
+    from ros2_mpc_jax.utils.viz import _write_png
 
     X_p, X_m, c_p, c_m = solve_scenario()
 

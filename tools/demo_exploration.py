@@ -16,9 +16,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(out_path="docs/demo_exploration.png"):
-    from ros2_mpc_tpu.nodes.explorer import ExplorerNode
-    from ros2_mpc_tpu.nodes.launch import build_sim_stack
-    from ros2_mpc_tpu.utils.viz import _write_png
+    from ros2_mpc_jax.nodes.explorer import ExplorerNode
+    from ros2_mpc_jax.nodes.launch import build_sim_stack
+    from ros2_mpc_jax.utils.viz import _write_png
 
     stack = build_sim_stack(
         follower="point", start_pose=(-1.0, -1.0, 0.0), horizon=12,

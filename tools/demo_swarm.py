@@ -12,10 +12,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main(out_path="docs/demo_swarm.png"):
-    from ros2_mpc_tpu.config import Params
-    from ros2_mpc_tpu.parallel import circle_swarm, make_swarm_rollout
-    from ros2_mpc_tpu.solver import SolverSettings, make_point_stabilization
-    from ros2_mpc_tpu.utils.viz import _write_png
+    from ros2_mpc_jax.config import Params
+    from ros2_mpc_jax.parallel import circle_swarm, make_swarm_rollout
+    from ros2_mpc_jax.solver import SolverSettings, make_point_stabilization
+    from ros2_mpc_jax.utils.viz import _write_png
 
     P = Params()
     prob = make_point_stabilization(

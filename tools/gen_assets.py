@@ -12,14 +12,14 @@ import yaml
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from ros2_mpc_tpu.config import Params
-from ros2_mpc_tpu.utils import pgm
+from ros2_mpc_jax.config import Params
+from ros2_mpc_jax.utils import pgm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
-    params_path = os.path.join(REPO, "ros2_mpc_tpu", "assets", "params.yaml")
+    params_path = os.path.join(REPO, "ros2_mpc_jax", "assets", "params.yaml")
     with open(params_path, "w") as fh:
         yaml.safe_dump(Params().to_yaml_dict(), fh, sort_keys=False)
     print("wrote", params_path)
